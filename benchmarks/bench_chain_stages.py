@@ -1,24 +1,22 @@
-"""Per-stage timing of the production DSP chain on the chip: where does
-the 0.21 s/s go?  Times progressively larger prefixes of the chain so
-stage costs fall out by differencing (the PROFILE build-flag role,
+"""Per-stage timing of the production DSP chain on the card: times
+progressively larger prefixes of the chain so stage costs fall out by
+differencing (the PROFILE build-flag role,
 ref process_baseband.h:9-13 + :1538-1565 end-of-obs breakdown)."""
 import sys, os
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import time
 import numpy as np
 import jax, jax.numpy as jnp
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(os.path.dirname(
-                      os.path.abspath(__file__))), ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
+from vlite_fast import backend
+backend.enable_compile_cache()
 from functools import partial
-from vlite_fast_tpu.config import PipelineConfig
-from vlite_fast_tpu.ops import channelize as ch
-from vlite_fast_tpu.ops import kurtosis as kur
-from vlite_fast_tpu.ops import normalize as norm
-from vlite_fast_tpu.ops import quantize as q
-from vlite_fast_tpu.ops import unpack as up
-from vlite_fast_tpu.models import baseband_dsp as dsp
+from vlite_fast.config import PipelineConfig
+from vlite_fast.ops import channelize as ch
+from vlite_fast.ops import kurtosis as kur
+from vlite_fast.ops import normalize as norm
+from vlite_fast.ops import quantize as q
+from vlite_fast.ops import unpack as up
+from vlite_fast.models import baseband_dsp as dsp
 
 cfg = PipelineConfig()
 dev = jax.devices()[0]
@@ -28,12 +26,11 @@ raw = jax.device_put(np.clip(rng.standard_normal(
     ).astype(np.uint8), dev)
 
 def seconds(fn, reps=3):
-    out = fn(raw)
-    _ = np.asarray(jax.tree_util.tree_leaves(out)[0]).ravel()[:4]
+    jax.block_until_ready(fn(raw))
     t0 = time.perf_counter()
     for _ in range(reps):
         out = fn(raw)
-    _ = np.asarray(jax.tree_util.tree_leaves(out)[0]).ravel()[:4]
+    jax.block_until_ready(out)
     return (time.perf_counter() - t0) / reps
 
 def scan_segs(body):
@@ -63,12 +60,6 @@ def kur_body(seg):
 t_kur = seconds(scan_segs(kur_body))
 print(f"unpack+kurtosis:       {t_kur:.3f} s/s", flush=True)
 
-def full_mode1(r):
-    st = dsp.init_state(cfg.__class__(**{**cfg.__dict__, 'rfi_mode': 1}))
-    o, _ = dsp.process_second(
-        cfg.__class__(**{**cfg.__dict__, 'rfi_mode': 1}), r, st,
-        jnp.bool_(False))
-    return o.packed_kur
 cfg1 = PipelineConfig(rfi_mode=1)
 st1 = jax.device_put(dsp.init_state(cfg1), dev)
 t_m1 = seconds(lambda r: dsp.process_second(cfg1, r, st1,

@@ -25,10 +25,10 @@ import time
 
 import numpy as np
 
-from vlite_fast_tpu import constants as C
-from vlite_fast_tpu.runtime import capture
-from vlite_fast_tpu.runtime.ring import RingBuffer
-from vlite_fast_tpu.utils import vdif
+from vlite_fast import constants as C
+from vlite_fast.runtime import capture
+from vlite_fast.runtime.ring import RingBuffer
+from vlite_fast.utils import vdif
 
 
 def build_frames(nsec: int):

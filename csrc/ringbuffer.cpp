@@ -1,6 +1,6 @@
 // Shared-memory ring buffer: the intra-node data plane.
 //
-// TPU-native replacement for PSRDADA's ipcbuf/ipcio rings (the reference's
+// Replacement for PSRDADA's ipcbuf/ipcio rings (the reference's
 // entire intra-node data plane, SURVEY.md section 2a #19): fixed-count,
 // fixed-size buffers in POSIX shared memory, single writer / single reader
 // plus passive "viewers" (the dumper pattern, ref src/dumper.c:162-166,

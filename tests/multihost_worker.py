@@ -29,7 +29,7 @@ def arraystep_config():
     (also used by the in-process reference run in test_multihost)."""
     import dataclasses
 
-    from vlite_fast_tpu.config import ArrayConfig, PipelineConfig
+    from vlite_fast.config import ArrayConfig, PipelineConfig
 
     acfg = ArrayConfig.tiny(nant=4, mesh_ant=2, mesh_time=2)
     # ema_impl='assoc': the cross-process bit-exactness contract needs
@@ -50,7 +50,7 @@ def arraystep_summary(acfg, mesh, seed=7):
     import numpy as np
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from vlite_fast_tpu.parallel.sharded_pipeline import (
+    from vlite_fast.parallel.sharded_pipeline import (
         ArrayStepOutput, build_array_step, extract_candidates)
 
     step_fn, make_inputs, plan, info = build_array_step(
@@ -84,7 +84,7 @@ def obs_config():
     DM 300) over a (ant=2, time=2) mesh, 4 antennas, two 4 s calls."""
     import dataclasses
 
-    from vlite_fast_tpu.config import (AntennaConfig, ArrayConfig,
+    from vlite_fast.config import (AntennaConfig, ArrayConfig,
                                        PipelineConfig, SearchConfig)
 
     dm_true = 300.0
@@ -117,15 +117,15 @@ def run_observation(pid, nproc, base_port):
     import numpy as np
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from vlite_fast_tpu import constants as C
-    from vlite_fast_tpu.config import TriggerConfig
-    from vlite_fast_tpu.parallel.mesh import make_mesh
-    from vlite_fast_tpu.parallel.sharded_pipeline import (
+    from vlite_fast import constants as C
+    from vlite_fast.config import TriggerConfig
+    from vlite_fast.parallel.mesh import make_mesh
+    from vlite_fast.parallel.sharded_pipeline import (
         ArrayStepOutput, build_array_step, extract_candidates)
-    from vlite_fast_tpu.runtime.candidate_server import (
+    from vlite_fast.runtime.candidate_server import (
         CandidateClient, CoincidencerServer)
-    from vlite_fast_tpu.runtime.capture import SecondAssembler
-    from vlite_fast_tpu.utils import vdif
+    from vlite_fast.runtime.capture import SecondAssembler
+    from vlite_fast.utils import vdif
 
     acfg, dm_true = obs_config()
     cfg = acfg.pipeline
@@ -251,10 +251,10 @@ def run_coadd(pid, nproc):
     from jax import shard_map
     import jax
 
-    from vlite_fast_tpu.parallel.mesh import make_mesh
-    from vlite_fast_tpu.parallel.distributed import (local_antenna_slice,
+    from vlite_fast.parallel.mesh import make_mesh
+    from vlite_fast.parallel.distributed import (local_antenna_slice,
                                                      make_global_array)
-    from vlite_fast_tpu.models.coadd import coadd_psum
+    from vlite_fast.models.coadd import coadd_psum
 
     nant = 4  # one antenna per global device
     mesh = make_mesh(n_ant=4, n_time=1)
@@ -285,7 +285,7 @@ def run_coadd(pid, nproc):
 def run_arraystep(pid, nproc):
     import jax
 
-    from vlite_fast_tpu.parallel.mesh import make_mesh
+    from vlite_fast.parallel.mesh import make_mesh
 
     mesh = make_mesh(n_ant=2, n_time=2)
     summary = arraystep_summary(arraystep_config(), mesh)

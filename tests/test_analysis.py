@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from vlite_fast_tpu.analysis import baseband as bb
-from vlite_fast_tpu.analysis import localization as loc
-from vlite_fast_tpu.utils import vdif
+from vlite_fast.analysis import baseband as bb
+from vlite_fast.analysis import localization as loc
+from vlite_fast.utils import vdif
 
 
 RATE = 1_000_000
@@ -115,7 +115,7 @@ def test_tdoa_clock_offsets():
 
 
 def test_fractional_shift():
-    from vlite_fast_tpu.analysis.beamforming import fractional_shift
+    from vlite_fast.analysis.beamforming import fractional_shift
     import jax.numpy as jnp
     t = np.arange(512)
     x = np.sin(2 * np.pi * 10 * t / 512).astype(np.float32)
@@ -128,7 +128,7 @@ def test_fractional_shift():
 
 
 def test_beamform_coherent_gain():
-    from vlite_fast_tpu.analysis import beamforming as bf
+    from vlite_fast.analysis import beamforming as bf
     rng = np.random.default_rng(20)
     n = 200_000
     pulse = np.zeros(n, np.float32)
@@ -162,8 +162,8 @@ def test_beamform_coherent_gain():
 
 
 def test_candidate_cutout():
-    from vlite_fast_tpu.analysis import cutout
-    from vlite_fast_tpu.ops.dedisperse import Candidate
+    from vlite_fast.analysis import cutout
+    from vlite_fast.ops.dedisperse import Candidate
     rng = np.random.default_rng(30)
     fb = rng.standard_normal((1000, 32)).astype(np.float32)
     freqs = 384.0 - np.arange(32) * 0.1
@@ -181,7 +181,7 @@ def test_candidate_cutout():
 def test_localization_from_dumps():
     """Full offline localization slice (loc_step2+3 roles): plane-wave
     delayed impulses at 5 antennas -> per-baseline delays -> TDOA fit."""
-    from vlite_fast_tpu.analysis import localization as loc
+    from vlite_fast.analysis import localization as loc
     rng = np.random.default_rng(31)
     nant, n = 5, 400_000
     positions = rng.uniform(-2000, 2000, (nant, 3))
@@ -221,7 +221,7 @@ def test_refine_dm():
     ntime, nchan = 600, 64
     fb = rng.standard_normal((ntime, nchan)).astype(np.float32)
     freqs = 384.0 - np.arange(nchan) * (4.0 / nchan)
-    from vlite_fast_tpu.ops import dedisperse as dd
+    from vlite_fast.ops import dedisperse as dd
     true_dm = 150.0
     delays = dd.delay_table(np.array([true_dm]), freqs, 2e-3)[0]
     for ch in range(nchan):
@@ -263,7 +263,7 @@ def test_beamform_toward_true_direction_not_mirror():
     convention end-to-end (geometric_delays -> beamform alignment).
     Regression: an inverted alignment sign put the coherent peak at the
     mirror direction and below a single antenna at the true one."""
-    from vlite_fast_tpu.analysis import beamforming as bf
+    from vlite_fast.analysis import beamforming as bf
     rng = np.random.default_rng(5)
     nant, n = 4, 200_000
     positions = rng.uniform(-6000, 6000, (nant, 3))

@@ -8,11 +8,11 @@ import sys
 import numpy as np
 import pytest
 
-from vlite_fast_tpu import constants as C
-from vlite_fast_tpu.analysis import unwrap as uw
-from vlite_fast_tpu.analysis import waterfall as wfm
-from vlite_fast_tpu.runtime import vla_xml, watchdog, recorder
-from vlite_fast_tpu.utils import vdif
+from vlite_fast import constants as C
+from vlite_fast.analysis import unwrap as uw
+from vlite_fast.analysis import waterfall as wfm
+from vlite_fast.runtime import vla_xml, watchdog, recorder
+from vlite_fast.utils import vdif
 
 
 OBS_XML = """<?xml version="1.0"?>
@@ -124,7 +124,7 @@ class TestUnwrap:
 
 class TestSpectral:
     def test_real_to_complex_tone(self):
-        from vlite_fast_tpu.analysis import spectral
+        from vlite_fast.analysis import spectral
         n = 4096
         t = np.arange(n)
         # tone at 0.2 cycles/sample (= 0.4 of the real Nyquist)
@@ -139,13 +139,13 @@ class TestSpectral:
         assert abs((np.abs(z) ** 2).mean() / (x ** 2).mean() - 2) < 0.2
 
     def test_fscrunch(self):
-        from vlite_fast_tpu.analysis import spectral
+        from vlite_fast.analysis import spectral
         fb = np.arange(9, dtype=np.float32)
         out = spectral.fscrunch(fb, 1)
         assert out[0] == 0 and out[1] == (1 + 2) / 2
 
     def test_cyclic_spectrum_modulation(self):
-        from vlite_fast_tpu.analysis import spectral
+        from vlite_fast.analysis import spectral
         rng = np.random.default_rng(0)
         n = 64 * 1024
         x = rng.standard_normal(n).astype(np.float32)
@@ -158,7 +158,7 @@ class TestSpectral:
         assert np.abs(out[1:]).mean() < 0.15 * np.abs(out[0]).mean()
 
     def test_filter_muos_isolates_band(self):
-        from vlite_fast_tpu.analysis import spectral
+        from vlite_fast.analysis import spectral
         rng = np.random.default_rng(1)
         n = 1 << 16
         fs = 128e6
@@ -196,7 +196,7 @@ class TestJoinDumps:
             np.fromfile(out, np.uint8), stream)
 
     def test_cli(self, tmp_path, capsys):
-        from vlite_fast_tpu import cli
+        from vlite_fast import cli
         rate = 25_000
         samples = np.random.default_rng(5).integers(
             1, 255, (2, rate), dtype=np.uint8)
@@ -255,7 +255,7 @@ class TestWaterfall:
 
     def test_candidate_png(self, tmp_path):
         import os
-        from vlite_fast_tpu.ops.dedisperse import Candidate
+        from vlite_fast.ops.dedisperse import Candidate
         rng = np.random.default_rng(7)
         fb = rng.standard_normal((800, 32)).astype(np.float32)
         freqs = 384.0 - np.arange(32) * 0.1
@@ -277,7 +277,7 @@ class TestWaterfall:
 class TestCLI:
     def test_synth_and_unwrap(self, tmp_path):
         out = tmp_path / "synth.vdif"
-        from vlite_fast_tpu import cli
+        from vlite_fast import cli
         cli.main(["synth", "-t", "0.5", "-d", "0", "-p", "0.1",
                   "--rate", "1000000", "--bandwidth", "0.5",
                   "--buflen", "250000", "-o", str(out)])
@@ -287,13 +287,12 @@ class TestCLI:
 
 def test_perf_cost_models():
     """utils/perf: the analytic cost models track the geometry and the
-    XLA cost hook degrades gracefully (VERDICT r2 #9 grounding)."""
+    XLA cost hook degrades gracefully."""
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from vlite_fast_tpu.config import PipelineConfig, SearchConfig
-    from vlite_fast_tpu.models import search as search_mod
-    from vlite_fast_tpu.utils import perf
+    from vlite_fast.config import PipelineConfig
+    from vlite_fast.utils import perf
 
     cfg = PipelineConfig()          # production geometry
     dft = perf.dft_flops_per_data_second(cfg)
@@ -302,13 +301,6 @@ def test_perf_cost_models():
                                                 + 8 * 100 * 125 * 63)
     assert dft["hw_bf16_flops"] == 3 * dft["nominal_flops"]  # bf16x3
     assert perf.chain_hbm_bytes_per_data_second(cfg) > 2 * 4 * 2 * 128e6
-
-    scfg = SearchConfig(dm_grid_mode="linear")
-    eng = search_mod.SinglePulseSearch(scfg, cfg.tsamp, cfg.freqs_mhz())
-    c = perf.dedisp_pallas_cost(eng.plan, cfg.nchanout, scfg.gulp_samps)
-    assert c["hbm_bytes"] > 4 * scfg.gulp_samps * cfg.nchanout  # > one fb
-    assert c["adds"] > 1024 * scfg.gulp_samps  # > one add/dm/sample
-    assert 0 < c["sol_hbm_s"] < 1.0
 
     out = perf.xla_cost(jax.jit(lambda x: jnp.sum(x * 2)),
                         np.ones(16, np.float32))

@@ -4,9 +4,9 @@ import time
 
 import pytest
 
-from vlite_fast_tpu.config import TriggerConfig
-from vlite_fast_tpu.ops.dedisperse import Candidate
-from vlite_fast_tpu.runtime.candidate_server import (CandidateClient,
+from vlite_fast.config import TriggerConfig
+from vlite_fast.ops.dedisperse import Candidate
+from vlite_fast.runtime.candidate_server import (CandidateClient,
                                                      CoincidencerServer,
                                                      format_batch,
                                                      parse_batch)

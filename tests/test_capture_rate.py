@@ -13,10 +13,10 @@ import time
 import numpy as np
 import pytest
 
-from vlite_fast_tpu import constants as C
-from vlite_fast_tpu.runtime import capture
-from vlite_fast_tpu.runtime.ring import RingBuffer
-from vlite_fast_tpu.utils import vdif
+from vlite_fast import constants as C
+from vlite_fast.runtime import capture
+from vlite_fast.runtime.ring import RingBuffer
+from vlite_fast.utils import vdif
 
 RATE = 1_000_000  # shrunken sample rate: 200 frames/s/pol for unit tests
 
@@ -284,7 +284,7 @@ def test_raw_capture_loopback():
 
 
 def test_open_capture_transport_switch():
-    from vlite_fast_tpu.runtime.capture import open_capture
+    from vlite_fast.runtime.capture import open_capture
     rx = open_capture("udp:0", sample_rate=RATE)
     assert isinstance(rx, capture.UDPCapture)
     rx.close()
@@ -304,8 +304,8 @@ def test_station_daemon_aborts_on_capture_fault():
     _udp_seconds rather than stream zeros forever."""
     import socket as sk
 
-    from vlite_fast_tpu.config import PipelineConfig, SearchConfig
-    from vlite_fast_tpu.runtime.station_main import StationDaemon
+    from vlite_fast.config import PipelineConfig, SearchConfig
+    from vlite_fast.runtime.station_main import StationDaemon
 
     d = StationDaemon(97, PipelineConfig.tiny(), SearchConfig.tiny(),
                       out_dir="/tmp/vfast_abort_test",

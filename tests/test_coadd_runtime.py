@@ -11,12 +11,12 @@ and raise a trigger, with no single beam triggering on its own.
 import numpy as np
 import pytest
 
-from vlite_fast_tpu.config import (AntennaConfig, ArrayConfig,
+from vlite_fast.config import (AntennaConfig, ArrayConfig,
                                    PipelineConfig, SearchConfig,
                                    TriggerConfig)
-from vlite_fast_tpu.models import synthesis
-from vlite_fast_tpu.runtime.control import ObservationDocument
-from vlite_fast_tpu.runtime.pipeline import COADD_BEAM, ArrayPipeline
+from vlite_fast.models import synthesis
+from vlite_fast.runtime.control import ObservationDocument
+from vlite_fast.runtime.pipeline import COADD_BEAM, ArrayPipeline
 
 NANT = 8
 DM = 300.0
@@ -94,8 +94,8 @@ class TestCoaddTapResync:
     misaligned time ranges."""
 
     def _searcher(self):
-        from vlite_fast_tpu.config import PipelineConfig, SearchConfig
-        from vlite_fast_tpu.runtime.pipeline import CoaddSearcher
+        from vlite_fast.config import PipelineConfig, SearchConfig
+        from vlite_fast.runtime.pipeline import CoaddSearcher
         cfg = PipelineConfig.tiny()
         scfg = SearchConfig.tiny(gulp_samps=1 << 20)  # never auto-search
         return cfg, CoaddSearcher([0, 1], cfg, scfg)

@@ -6,11 +6,11 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from vlite_fast_tpu.config import PipelineConfig, SearchConfig
-from vlite_fast_tpu.models import baseband_dsp as dsp
-from vlite_fast_tpu.models import search as search_mod
-from vlite_fast_tpu.models import synthesis
-from vlite_fast_tpu.models.coadd import coadd
+from vlite_fast.config import PipelineConfig, SearchConfig
+from vlite_fast.models import baseband_dsp as dsp
+from vlite_fast.models import search as search_mod
+from vlite_fast.models import synthesis
+from vlite_fast.models.coadd import coadd
 
 
 NANT = 4

@@ -10,13 +10,13 @@ recover the injected direction, through the public API only.
 import numpy as np
 import pytest
 
-from vlite_fast_tpu.analysis import baseband as bb
-from vlite_fast_tpu.analysis import localization as loc
-from vlite_fast_tpu.analysis.dataset import (BasebandFragment,
+from vlite_fast.analysis import baseband as bb
+from vlite_fast.analysis import localization as loc
+from vlite_fast.analysis.dataset import (BasebandFragment,
                                              BasebandFragments,
                                              load_dataset)
-from vlite_fast_tpu.utils import vdif
-from vlite_fast_tpu import constants as C
+from vlite_fast.utils import vdif
+from vlite_fast import constants as C
 
 RATE = 1_000_000
 FPS = RATE // 5000          # frames/s/pol at the tiny rate
@@ -173,8 +173,8 @@ def test_clean_coherent_dedisperse_beats_raw_chirp():
     """loc_step1 semantics: with narrowband RFI riding on a dispersed
     pulse, bandpass flattening + RFI excision BEFORE the inverse chirp
     must yield a cleaner recovered pulse than the raw chirp."""
-    from vlite_fast_tpu.models import synthesis
-    from vlite_fast_tpu.ops import coherent as coh
+    from vlite_fast.models import synthesis
+    from vlite_fast.ops import coherent as coh
     import jax.numpy as jnp
     dm, rate = 40.0, RATE
     s = synthesis.SynthConfig(tobs=0.4, dm=dm, pulse_period=0.1,
@@ -209,7 +209,7 @@ def test_clean_coherent_dedisperse_beats_raw_chirp():
 def test_cli_localize(tmp_path, capsys):
     """The researcher-facing command over the same dump set."""
     import json
-    from vlite_fast_tpu import cli
+    from vlite_fast import cli
     rng = np.random.default_rng(9)
     nant, n = 3, 200_000
     positions = np.array([[0.0, 0.0, 0.0], [2000.0, 0.0, 0.0],
@@ -280,7 +280,7 @@ def test_e2e_sky_localization_antprop_cli(tmp_path, capsys):
     standard horizontal->equatorial formulas, independent of the
     module's ITRS->ICRS matrix chain."""
     import json
-    from vlite_fast_tpu import cli
+    from vlite_fast import cli
 
     rng = np.random.default_rng(41)
     # local tangent basis at the VLA (geocentric up)

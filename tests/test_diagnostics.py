@@ -5,11 +5,11 @@ the genbase-style moments self-check."""
 import numpy as np
 import jax.numpy as jnp
 
-from vlite_fast_tpu.config import PipelineConfig, SearchConfig
-from vlite_fast_tpu.models import synthesis
-from vlite_fast_tpu.ops import kurtosis as kur
-from vlite_fast_tpu.runtime.control import ObservationDocument
-from vlite_fast_tpu.runtime.pipeline import StationPipeline
+from vlite_fast.config import PipelineConfig, SearchConfig
+from vlite_fast.models import synthesis
+from vlite_fast.ops import kurtosis as kur
+from vlite_fast.runtime.control import ObservationDocument
+from vlite_fast.runtime.pipeline import StationPipeline
 
 
 def test_dag_fb_gate_zeroes_bursty_block():

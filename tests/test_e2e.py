@@ -7,10 +7,10 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from vlite_fast_tpu.config import PipelineConfig, SearchConfig
-from vlite_fast_tpu.models import baseband_dsp as dsp
-from vlite_fast_tpu.models import search as search_mod
-from vlite_fast_tpu.models import synthesis
+from vlite_fast.config import PipelineConfig, SearchConfig
+from vlite_fast.models import baseband_dsp as dsp
+from vlite_fast.models import search as search_mod
+from vlite_fast.models import synthesis
 
 DM_TRUE = 300.0
 
@@ -82,7 +82,7 @@ def test_pulse_recovered_2bit():
 
 
 def test_dm_grid_tol():
-    from vlite_fast_tpu.ops import dedisperse as dd
+    from vlite_fast.ops import dedisperse as dd
     freqs = np.asarray(
         [384.0 - i * (64.0 / 6251) for i in range(2155, 6251)])
     dms = dd.dm_grid_tol(2.0, 1000.0, 781.25e-6, freqs, tol=1.25)
@@ -98,10 +98,10 @@ def test_dm_grid_tol():
 def test_array_streaming_mode(tmp_path):
     """Interleaved multi-antenna serving with mid-observation coincidence
     (ArrayPipeline.run_streaming): same detections + a trigger + dumps."""
-    from vlite_fast_tpu.config import (AntennaConfig, ArrayConfig,
+    from vlite_fast.config import (AntennaConfig, ArrayConfig,
                                        TriggerConfig)
-    from vlite_fast_tpu.runtime.pipeline import ArrayPipeline
-    from vlite_fast_tpu.runtime.control import ObservationDocument
+    from vlite_fast.runtime.pipeline import ArrayPipeline
+    from vlite_fast.runtime.control import ObservationDocument
 
     cfg = PipelineConfig.tiny(freq_top_mhz=320.5, bandwidth_mhz=0.5)
     scfg = SearchConfig(dm_min=0.0, dm_max=600.0, ndm=61, gulp_samps=512,
@@ -158,10 +158,10 @@ def test_search_gulp_packed_matches_unpacked():
     same candidates as the float path."""
     import numpy as np
     import jax.numpy as jnp
-    from vlite_fast_tpu.config import PipelineConfig, SearchConfig
-    from vlite_fast_tpu.models import baseband_dsp as dsp
-    from vlite_fast_tpu.models import search as search_mod
-    from vlite_fast_tpu.models import synthesis
+    from vlite_fast.config import PipelineConfig, SearchConfig
+    from vlite_fast.models import baseband_dsp as dsp
+    from vlite_fast.models import search as search_mod
+    from vlite_fast.models import synthesis
 
     cfg = PipelineConfig.tiny(freq_top_mhz=320.5, bandwidth_mhz=0.5)
     s = synthesis.SynthConfig(tobs=2.0, dm=300.0, pulse_period=0.05,

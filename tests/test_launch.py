@@ -14,11 +14,11 @@ import os
 import numpy as np
 import pytest
 
-from vlite_fast_tpu import cli
-from vlite_fast_tpu.config import (AntennaConfig, ArrayConfig,
+from vlite_fast import cli
+from vlite_fast.config import (AntennaConfig, ArrayConfig,
                                    PipelineConfig, SearchConfig,
                                    TriggerConfig)
-from vlite_fast_tpu.models import synthesis
+from vlite_fast.models import synthesis
 
 
 @pytest.mark.slow
@@ -98,7 +98,7 @@ def test_launch_print_remote_plan(tmp_path, capsys):
     lines = [l for l in capsys.readouterr().out.splitlines() if l]
     assert len(lines) == 2
     assert lines[0].startswith("ssh vd01 nohup python3 -m "
-                               "vlite_fast_tpu.runtime.station_main")
+                               "vlite_fast.runtime.station_main")
     assert "--leader 10.0.0.9" in lines[0]
     assert f"--coincidencer 10.0.0.9:24155" in lines[0]
     assert "--station 3" in lines[1] and "ssh vd03" in lines[1]
@@ -120,7 +120,7 @@ def test_launch_remote_plan_candidate_shipping(tmp_path, capsys):
     import sys as _sys
     import time as _t
 
-    from vlite_fast_tpu.runtime.leader_main import Leader
+    from vlite_fast.runtime.leader_main import Leader
 
     cfgp = PipelineConfig.tiny(freq_top_mhz=320.5, bandwidth_mhz=0.5)
     sources = []
@@ -178,7 +178,7 @@ def test_launch_remote_plan_candidate_shipping(tmp_path, capsys):
                                       leader.sender.endpoints[1][1])
         procs.append(subprocess.Popen(remote_cmd))
         procs.append(subprocess.Popen(
-            [_sys.executable, "-m", "vlite_fast_tpu.runtime.station_main",
+            [_sys.executable, "-m", "vlite_fast.runtime.station_main",
              "--station", "1", "--config", str(cfg_path),
              "--source", sources[0], "--out-dir", out,
              "--leader", "127.0.0.1",
@@ -221,7 +221,7 @@ def test_leader_binds_wildcard_for_remote_arrays(tmp_path):
     """With any remote antenna host, the leader's command bus and
     coincidencer must bind 0.0.0.0 (remote stations dial in) and trigger
     fanout must target each station's own host."""
-    from vlite_fast_tpu.runtime.leader_main import Leader
+    from vlite_fast.runtime.leader_main import Leader
     acfg = ArrayConfig(
         antennas=(AntennaConfig(1, "ea01", host="vd01"),
                   AntennaConfig(2, "ea02")),             # local

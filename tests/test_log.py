@@ -5,7 +5,7 @@ import time
 
 import numpy as np
 
-from vlite_fast_tpu.utils.log import Metrics, RTMonitor, make_logger
+from vlite_fast.utils.log import Metrics, RTMonitor, make_logger
 
 
 def test_metrics_textfile(tmp_path):
@@ -51,7 +51,7 @@ def test_logger_file(tmp_path):
 
 
 def test_sigproc_coordinate_packing():
-    from vlite_fast_tpu.utils.sigproc import radians_to_sigproc
+    from vlite_fast.utils.sigproc import radians_to_sigproc
     import math
     # RA 12h30m45s = 123045.0
     ra_rad = (12 + 30 / 60 + 45 / 3600) / 24 * 2 * math.pi
@@ -63,7 +63,7 @@ def test_sigproc_coordinate_packing():
 
 def test_pack_4bit_nibble_order():
     import jax.numpy as jnp
-    from vlite_fast_tpu.ops.quantize import pack_bits
+    from vlite_fast.ops.quantize import pack_bits
     # sample 0 -> low nibble, sample 1 -> high nibble
     # (ref pb_kernels.cu:693-706)
     lev = jnp.asarray(np.array([[3, 12]], np.uint8))

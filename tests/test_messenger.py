@@ -5,9 +5,9 @@ import time
 
 import pytest
 
-from vlite_fast_tpu.runtime.control import Command, ObservationDocument
-from vlite_fast_tpu.runtime.messenger import Messenger, MessengerConfig
-from tests.test_aux import OBS_XML, FINISH_XML, ANTPROP_XML, ALERT_XML
+from vlite_fast.runtime.control import Command, ObservationDocument
+from vlite_fast.runtime.messenger import Messenger, MessengerConfig
+from test_aux import OBS_XML, FINISH_XML, ANTPROP_XML, ALERT_XML
 
 
 def test_feed_documents(tmp_path):
@@ -50,7 +50,7 @@ def test_udp_ingest_and_bus():
     import socket
     m = Messenger(MessengerConfig(obsinfo_port=38011, command_port=38012))
     try:
-        from vlite_fast_tpu.runtime.control import CommandClient
+        from vlite_fast.runtime.control import CommandClient
         cli = CommandClient(port=38012)
         time.sleep(0.3)
         s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
@@ -72,7 +72,7 @@ def test_udp_ingest_and_bus():
 
 def test_source_whitelist():
     """check_name/check_id/check_coords policy (ref src/util.c:91-152)."""
-    from vlite_fast_tpu.runtime.sources import SourceWhitelist, coord_dist
+    from vlite_fast.runtime.sources import SourceWhitelist, coord_dist
     wl = SourceWhitelist()
     assert wl.check_name("PSR B0329+54 drift")
     assert wl.check_name("R3")
@@ -92,8 +92,8 @@ def test_source_whitelist():
 
 
 def test_messenger_source_of_interest_alert():
-    from vlite_fast_tpu.runtime.messenger import Messenger, MessengerConfig
-    from vlite_fast_tpu.runtime.control import ObservationDocument
+    from vlite_fast.runtime.messenger import Messenger, MessengerConfig
+    from vlite_fast.runtime.control import ObservationDocument
     hits = []
     m = Messenger(MessengerConfig(
         notify=lambda subj, body: hits.append((subj, body))))
@@ -113,9 +113,9 @@ def test_leader_manual_port():
     import socket
     import time as _t
 
-    from vlite_fast_tpu.config import ArrayConfig
-    from vlite_fast_tpu.runtime.control import Command
-    from vlite_fast_tpu.runtime.leader_main import Leader
+    from vlite_fast.config import ArrayConfig
+    from vlite_fast.runtime.control import Command
+    from vlite_fast.runtime.leader_main import Leader
 
     acfg = ArrayConfig.tiny(nant=2, command_port=23501,
                             coincidencer_port=23555,

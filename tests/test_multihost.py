@@ -95,7 +95,7 @@ def test_two_process_array_step():
         assert outs[0][key] == outs[1][key], key
 
     # single-process reference: same geometry/seed on 4 local devices
-    from vlite_fast_tpu.parallel.mesh import make_mesh
+    from vlite_fast.parallel.mesh import make_mesh
     mesh = make_mesh(n_ant=2, n_time=2, devices=jax.devices()[:4])
     ref = mw.arraystep_summary(mw.arraystep_config(), mesh)
 

@@ -1,7 +1,7 @@
 """Quantify the strided-subsampled noise median at PRODUCTION geometry
 (VERDICT r2 weak #6): boxcar_snr's per-trial robust sigma is estimated
-from ~10240 strided samples instead of a full 30720-sample sort (most
-of a 29 ms/gulp TPU saving).  These tests bound the S/N error that approximation
+from ~10240 strided samples instead of a full 30720-sample sort.  These
+tests bound the S/N error that approximation
 introduces against the exact sort at the real gulp shape.
 """
 
@@ -9,7 +9,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from vlite_fast_tpu.ops import dedisperse as dd
+from vlite_fast.ops import dedisperse as dd
 
 NDM = 1024          # production linear grid
 NTIME = 30720       # production gulp (24 s at 781.25 us)

@@ -5,8 +5,8 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from vlite_fast_tpu import constants as C
-from vlite_fast_tpu.ops import (channelize, injection, kurtosis, normalize,
+from vlite_fast import constants as C
+from vlite_fast.ops import (channelize, injection, kurtosis, normalize,
                                 quantize, unpack)
 
 
@@ -218,8 +218,8 @@ class TestNormalize:
         """rfi_excise_framed (the frame-layout front that avoids the f32
         tile relayouts — see its docstring) must agree with rfi_excise:
         identical weights and masked voltages, stats to f32 rounding."""
-        from vlite_fast_tpu.ops import channelize as ch
-        from vlite_fast_tpu.ops.unpack import convert_uint8
+        from vlite_fast.ops import channelize as ch
+        from vlite_fast.ops.unpack import convert_uint8
 
         npol, nspec, nfft, nkurto = 2, 4, 500, 50
         rng = np.random.default_rng(5)
@@ -247,7 +247,7 @@ class TestNormalize:
         np.testing.assert_array_equal(masked, np.asarray(res.masked))
 
     def test_framed_dft_matches_planes(self):
-        from vlite_fast_tpu.ops import channelize as ch
+        from vlite_fast.ops import channelize as ch
         nfft = 500
         n1, n2 = ch._ct_split(nfft)
         rng = np.random.default_rng(6)
@@ -293,38 +293,6 @@ class TestNormalize:
                                    rtol=2e-3, atol=1e-3)
         np.testing.assert_allclose(np.asarray(b1), np.asarray(b2),
                                    rtol=2e-3)
-
-    def test_pallas_ema_matches_scan(self):
-        from vlite_fast_tpu.ops import pallas_kernels as pk
-        rng = np.random.default_rng(4)
-        p = rng.chisquare(2, (2, 32, 40)).astype(np.float32)
-        bp0 = np.zeros((2, 40), np.float32)
-        o1, b1 = normalize.normalize_ema(jnp.asarray(p), jnp.asarray(bp0),
-                                         0.02)
-        o2, b2 = pk.normalize_ema_pallas(jnp.asarray(p), jnp.asarray(bp0),
-                                         0.02, chan_tile=16)
-        np.testing.assert_allclose(np.asarray(o1), np.asarray(o2),
-                                   rtol=2e-6, atol=2e-6)
-        np.testing.assert_allclose(np.asarray(b1), np.asarray(b2),
-                                   rtol=2e-6, atol=2e-6)
-
-    def test_pallas_ema_weighted_matches_scan(self):
-        from vlite_fast_tpu.ops import pallas_kernels as pk
-        rng = np.random.default_rng(5)
-        p = rng.chisquare(2, (1, 24, 20)).astype(np.float32)
-        p[0, 7] *= 400.0
-        w = np.ones((1, 24), np.float32)
-        w[0, 3] = 0.0
-        bp0 = np.zeros((1, 20), np.float32)
-        o1, b1 = normalize.normalize_ema_weighted(
-            jnp.asarray(p), jnp.asarray(w), jnp.asarray(bp0), 0.05)
-        o2, b2 = pk.normalize_ema_weighted_pallas(
-            jnp.asarray(p), jnp.asarray(w), jnp.asarray(bp0), 0.05,
-            chan_tile=20)
-        np.testing.assert_allclose(np.asarray(o1), np.asarray(o2),
-                                   rtol=2e-6, atol=2e-6)
-        np.testing.assert_allclose(np.asarray(b1), np.asarray(b2),
-                                   rtol=2e-6, atol=2e-6)
 
     def test_pscrunch(self):
         x = np.arange(24, dtype=np.float32).reshape(2, 3, 4)

@@ -4,10 +4,10 @@ weight bookkeeping lets channelizer='pfb' run with rfi_mode 1/2."""
 import numpy as np
 import jax.numpy as jnp
 
-from vlite_fast_tpu.config import PipelineConfig
-from vlite_fast_tpu.models import baseband_dsp as dsp
-from vlite_fast_tpu.ops import channelize as ch
-from vlite_fast_tpu.ops import kurtosis as kur
+from vlite_fast.config import PipelineConfig
+from vlite_fast.models import baseband_dsp as dsp
+from vlite_fast.ops import channelize as ch
+from vlite_fast.ops import kurtosis as kur
 
 
 def test_pfb_weights_energy_average():

@@ -7,16 +7,16 @@ import time
 import numpy as np
 import pytest
 
-from vlite_fast_tpu import constants as C
-from vlite_fast_tpu.runtime.capture import SecondAssembler, replay_file
-from vlite_fast_tpu.runtime.control import (Command, CommandBus,
+from vlite_fast import constants as C
+from vlite_fast.runtime.capture import SecondAssembler, replay_file
+from vlite_fast.runtime.control import (Command, CommandBus,
                                             CommandClient,
                                             ObservationDocument,
                                             ScanStateMachine)
-from vlite_fast_tpu.runtime.dumper import TriggeredDumper
-from vlite_fast_tpu.runtime.ring import RingBuffer, FLAG_OBS_START
-from vlite_fast_tpu.runtime.trigger import Trigger
-from vlite_fast_tpu.utils import vdif
+from vlite_fast.runtime.dumper import TriggeredDumper
+from vlite_fast.runtime.ring import RingBuffer, FLAG_OBS_START
+from vlite_fast.runtime.trigger import Trigger
+from vlite_fast.utils import vdif
 
 
 class TestRing:
@@ -101,7 +101,7 @@ class TestAssembler:
 class TestUDPCapture:
     def test_loopback_capture(self):
         import socket
-        from vlite_fast_tpu.runtime.capture import UDPCapture, to_unix
+        from vlite_fast.runtime.capture import UDPCapture, to_unix
         rate = 50_000
         cap = UDPCapture(port=38777, sample_rate=rate)
         try:
@@ -131,11 +131,11 @@ class TestDaemonServe:
         """Leader commands drive the daemon's serve() loop end-to-end
         (START -> file observation -> QUIT)."""
         import threading
-        from vlite_fast_tpu.config import PipelineConfig, SearchConfig
-        from vlite_fast_tpu.models import synthesis
-        from vlite_fast_tpu.runtime.control import CommandBus, Command, \
+        from vlite_fast.config import PipelineConfig, SearchConfig
+        from vlite_fast.models import synthesis
+        from vlite_fast.runtime.control import CommandBus, Command, \
             ObservationDocument
-        from vlite_fast_tpu.runtime.station_main import StationDaemon
+        from vlite_fast.runtime.station_main import StationDaemon
 
         cfg = PipelineConfig.tiny()
         stream, _ = synthesis.generate_vdif(
@@ -240,7 +240,7 @@ class TestDeviceGulpStream:
     (runtime/pipeline.DeviceGulpStream.window pad_to semantics)."""
 
     def _stream(self, blocks):
-        from vlite_fast_tpu.runtime.pipeline import DeviceGulpStream
+        from vlite_fast.runtime.pipeline import DeviceGulpStream
         import jax.numpy as jnp
         s = DeviceGulpStream()
         for b in blocks:
@@ -288,9 +288,9 @@ def test_station_pipeline_memory_bounded():
     and feed_second must not slow down as the observation ages."""
     import time as _time
     import jax.numpy as jnp
-    from vlite_fast_tpu.config import PipelineConfig, SearchConfig
-    from vlite_fast_tpu.runtime.control import ObservationDocument
-    from vlite_fast_tpu.runtime.pipeline import StationPipeline
+    from vlite_fast.config import PipelineConfig, SearchConfig
+    from vlite_fast.runtime.control import ObservationDocument
+    from vlite_fast.runtime.pipeline import StationPipeline
 
     cfg = PipelineConfig.tiny()
     scfg = SearchConfig.tiny()
@@ -371,11 +371,11 @@ def test_inject_host_gating_byte_exact():
     vs running the injection program unconditionally with the same arm
     schedule (outside the window it multiplies by all-ones)."""
     import jax.numpy as jnp
-    from vlite_fast_tpu import constants as C
-    from vlite_fast_tpu.config import PipelineConfig, SearchConfig
-    from vlite_fast_tpu.models import baseband_dsp as dsp
-    from vlite_fast_tpu.runtime.control import ObservationDocument
-    from vlite_fast_tpu.runtime.pipeline import StationPipeline
+    from vlite_fast import constants as C
+    from vlite_fast.config import PipelineConfig, SearchConfig
+    from vlite_fast.models import baseband_dsp as dsp
+    from vlite_fast.runtime.control import ObservationDocument
+    from vlite_fast.runtime.pipeline import StationPipeline
 
     cfg = PipelineConfig.tiny(inject_frb=True)
     scfg = SearchConfig.tiny()
@@ -421,10 +421,10 @@ def test_prewarm_compiles_both_programs():
     lazy compile there is a multi-minute real-time stall on a cold cache
     (the reference compiles its CUDA kernels at process start, not in
     the hot loop)."""
-    from vlite_fast_tpu.config import PipelineConfig, SearchConfig
-    from vlite_fast_tpu.models import baseband_dsp as dsp
-    from vlite_fast_tpu.runtime.control import ObservationDocument
-    from vlite_fast_tpu.runtime.pipeline import StationPipeline
+    from vlite_fast.config import PipelineConfig, SearchConfig
+    from vlite_fast.models import baseband_dsp as dsp
+    from vlite_fast.runtime.control import ObservationDocument
+    from vlite_fast.runtime.pipeline import StationPipeline
 
     cfg = PipelineConfig.tiny(inject_frb=True)
     pipe = StationPipeline(1, cfg, SearchConfig.tiny(),

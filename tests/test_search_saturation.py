@@ -13,9 +13,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from vlite_fast_tpu.config import SearchConfig
-from vlite_fast_tpu.models import search as search_mod
-from vlite_fast_tpu.ops import dedisperse as dd
+from vlite_fast.config import SearchConfig
+from vlite_fast.models import search as search_mod
+from vlite_fast.ops import dedisperse as dd
 
 
 NCHAN = 64

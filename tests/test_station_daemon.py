@@ -9,14 +9,14 @@ import time
 import numpy as np
 import pytest
 
-from vlite_fast_tpu.config import (PipelineConfig, SearchConfig,
+from vlite_fast.config import (PipelineConfig, SearchConfig,
                                    TriggerConfig)
-from vlite_fast_tpu.models import synthesis
-from vlite_fast_tpu.runtime.candidate_server import CoincidencerServer
-from vlite_fast_tpu.runtime.control import Command, ObservationDocument
-from vlite_fast_tpu.runtime.station_main import StationDaemon
-from vlite_fast_tpu.runtime.trigger import TriggerSender
-from vlite_fast_tpu.utils import vdif
+from vlite_fast.models import synthesis
+from vlite_fast.runtime.candidate_server import CoincidencerServer
+from vlite_fast.runtime.control import Command, ObservationDocument
+from vlite_fast.runtime.station_main import StationDaemon
+from vlite_fast.runtime.trigger import TriggerSender
+from vlite_fast.utils import vdif
 
 
 @pytest.fixture(scope="module")
@@ -57,7 +57,7 @@ def test_full_topology(synth_vdif, tmp_path):
                 command_port=None, coincidencer=("127.0.0.1", 37914),
                 trigger_port=37913 if sid == 1 else None))
 
-        from vlite_fast_tpu.runtime.capture import replay_file
+        from vlite_fast.runtime.capture import replay_file
         od = ObservationDocument(name="pulse", scan_no=2,
                                  start_time=0.0)
         for d in daemons:
@@ -116,7 +116,7 @@ class _FakeCandClient:
 def test_candidates_ship_per_gulp(synth_vdif, tmp_path):
     """Candidate batches must reach the coincidencer as gulps complete
     (gulp-bound latency), not at observation end."""
-    from vlite_fast_tpu.runtime.capture import replay_file
+    from vlite_fast.runtime.capture import replay_file
     cfg = PipelineConfig.tiny(freq_top_mhz=320.5, bandwidth_mhz=0.5)
     scfg = SearchConfig(dm_min=0.0, dm_max=600.0, ndm=60, gulp_samps=256,
                         boxcar_max=16, zap_ranges=(), snr_thresh=6.0)
@@ -150,7 +150,7 @@ def test_candidates_ship_per_gulp(synth_vdif, tmp_path):
 def test_candidate_utc_rebase_across_skewed_stations(synth_vdif, tmp_path):
     """Two stations whose capture locked one second apart must land in
     the SAME coincidence group with consistent sample indices."""
-    from vlite_fast_tpu.runtime.capture import replay_file
+    from vlite_fast.runtime.capture import replay_file
     cfg = PipelineConfig.tiny(freq_top_mhz=320.5, bandwidth_mhz=0.5)
     scfg = SearchConfig(dm_min=0.0, dm_max=600.0, ndm=60, gulp_samps=512,
                         boxcar_max=16, zap_ranges=(), snr_thresh=6.0)
@@ -211,7 +211,7 @@ def test_search_live_false_keeps_nothing(tmp_path):
     """search_live=False must not accumulate device or host gulp blocks
     (no search will consume/prune them)."""
     import jax.numpy as jnp
-    from vlite_fast_tpu.runtime.pipeline import StationPipeline
+    from vlite_fast.runtime.pipeline import StationPipeline
     cfg = PipelineConfig.tiny()
     pipe = StationPipeline(1, cfg, SearchConfig.tiny(),
                            out_dir=str(tmp_path), keep_ring=False)

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from vlite_fast_tpu.models import synthesis
-from vlite_fast_tpu.utils import vdif
+from vlite_fast.models import synthesis
+from vlite_fast.utils import vdif
 
 
 TINY = synthesis.SynthConfig(

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from vlite_fast_tpu.config import TriggerConfig
-from vlite_fast_tpu.ops.dedisperse import Candidate
-from vlite_fast_tpu.runtime import trigger as trig
+from vlite_fast.config import TriggerConfig
+from vlite_fast.ops.dedisperse import Candidate
+from vlite_fast.runtime import trigger as trig
 
 TSAMP = 1.0 / 1280
 

@@ -1,8 +1,8 @@
 import numpy as np
 import pytest
 
-from vlite_fast_tpu import constants as C
-from vlite_fast_tpu.utils import vdif
+from vlite_fast import constants as C
+from vlite_fast.utils import vdif
 
 
 def test_header_roundtrip():
@@ -65,8 +65,8 @@ def test_placed_decoding_bounds_corrupt_span():
     continuity error, not size the output buffer to terabytes."""
     import numpy as np
     import pytest
-    from vlite_fast_tpu import constants as C
-    from vlite_fast_tpu.utils import vdif
+    from vlite_fast import constants as C
+    from vlite_fast.utils import vdif
     rate = 50_000
     samples = np.random.default_rng(2).integers(
         1, 255, (2, rate), dtype=np.uint8)
